@@ -146,3 +146,39 @@ def test_bucketed_sqp_matches_plain_batch(preset_name):
     assert np.array_equal(np.asarray(fp.iteration), np.asarray(fb.iteration))
     np.testing.assert_allclose(np.asarray(fp.x), np.asarray(fb.x),
                                rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("pname,module,builder", [
+    ("ipopt", "uno_tpu.solvers.ipm", "build_ipm"),
+    ("filtersqp", "uno_tpu.solvers.sqp_fused", "build_sqp_fused"),
+    ("byrd", "uno_tpu.solvers.sqp_fused", "build_byrd_fused"),
+])
+def test_solve_lowers_one_program_per_parametric_nlp(monkeypatch, pname,
+                                                     module, builder):
+    """Instances of one parametric NLP differ only in their params, which
+    ride in the solver state as an argument: uno_tpu.solve lowers the same
+    program for each, so the compile cache serves every instance after the
+    first."""
+    import dataclasses
+    import importlib
+
+    mod = importlib.import_module(module)
+    orig = getattr(mod, builder)
+    lowered = []
+
+    def spy(*args, **kwargs):
+        prob, ws, step, run = orig(*args, **kwargs)
+
+        def run_spy(state):
+            lowered.append(run.lower(state).as_text())
+            return run(state)
+
+        return prob, ws, step, run_spy
+
+    monkeypatch.setattr(mod, builder, spy)
+    nlp = batched_qp_nlp()
+    for a, b in ((0.2, 0.3), (1.5, -0.4)):
+        inst = dataclasses.replace(nlp, params=jnp.asarray([a, b]))
+        r = uno_tpu.solve(inst, preset=pname, scale_functions=False)
+        assert r.success or r.status == "feasible_small_step", r.status
+    assert len(lowered) == 2 and lowered[0] == lowered[1]

@@ -83,7 +83,7 @@ def test_scalable_instances_registered():
                 actual = lc.cutest_problem(fam, n).n
                 assert f"{fam}_n{actual}" in names, (fam, n, actual)
                 count += 1
-    assert count >= 100  # corpus width guarantee (VERDICT item 2)
+    assert count >= 100  # corpus width guarantee
     nlp = get_problem("srosenbr_n100")
     assert nlp.n == 100
 

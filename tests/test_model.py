@@ -123,7 +123,7 @@ def test_ipm_reformulation_chain():
 
 
 def test_vmap_over_params():
-    # same structure, batched instance data: the TPU batch axis
+    # same structure, batched instance data: the batch axis
     def f(x, p):
         return jnp.sum((x - p) ** 2)
 

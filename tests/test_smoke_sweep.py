@@ -1,9 +1,9 @@
-"""Cross-preset solved-status smoke gate (round-2 VERDICT hygiene item).
+"""Cross-preset solved-status smoke gate.
 
 A ~25-solve slice of the full-library sweep promoted into the DEFAULT
 pytest tier, so solved-status regressions surface without `--runslow`.
-Problems and presets are chosen from SWEEP_r03.json rows that are fast and
-stably solved; expectations mirror the sweep's success convention
+Problems and presets are chosen from the round-3 sweep's rows that are
+fast and stably solved; expectations mirror the sweep's success convention
 (`success` or a feasible small step at the certified objective).
 """
 

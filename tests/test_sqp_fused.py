@@ -1,7 +1,7 @@
 """Fused (jittable/vmappable) SQP driver tests (solvers/sqp_fused.py).
 
 The round-1 gap: filtersqp/funnelsqp/filterslp ran as host-orchestrated
-Python loops and could not ride the batch axis (VERDICT item 3).  These
+Python loops and could not ride the batch axis.  These
 tests pin (a) correctness vs known optima, (b) agreement with the host
 driver, (c) the batched path via solve_batch(preset="filtersqp")."""
 
@@ -94,7 +94,7 @@ def test_fused_infeasible_detected():
 
 
 def test_batched_filtersqp():
-    """VERDICT item 3 done-criterion: solve_batch(preset='filtersqp') works
+    """solve_batch(preset='filtersqp') works
     and matches per-instance solves."""
     from uno_tpu.solvers.batch import solve_batch
     from uno_tpu.model.nlp import nlp_from_functions, INF
@@ -149,7 +149,7 @@ def test_batched_funnelsqp():
 
 # ---------------------------------------------------------------------------
 # fused byrd (LS + l1 merit + Sl1QP steering), round 2: the last
-# host-driven preset joins the batch axis (VERDICT round-1 weak item 1)
+# host-driven preset joins the batch axis
 # ---------------------------------------------------------------------------
 
 BYRD_CORE = ["hs014", "hs015", "hs021", "hs035", "hs071", "hs100", "polak5"]

@@ -6,14 +6,14 @@
 // filterslp) over the same .nl corpus uno_tpu sweeps — the reference-side
 // denominator for the SQP-preset parity rows (round-4).
 //
-// The algorithm mirrors uno_tpu/solvers/qp.py (the TPU framework's own
+// The algorithm mirrors uno_tpu/solvers/qp.py (the JAX framework's own
 // BQPD replacement): slack-condensed primal-dual IP with inertia-corrected
 // (LAPACK dsytrf) KKT solves, fraction-to-boundary steps, monotone mu,
 // eps-active least-squares dual purification (BQPD-parity multipliers,
 // BQPDSolver.cpp:310-348), and the never-feasible infeasibility
 // classifier.  Indefinite Hessians are convexified by the delta*I inertia
 // loop — the same documented deviation from BQPD's true-nonconvex
-// active-set search that the TPU framework carries, which makes the two
+// active-set search that the JAX framework carries, which makes the two
 // sides directly comparable.
 
 #pragma once

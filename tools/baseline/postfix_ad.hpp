@@ -1,6 +1,6 @@
 // Postfix-AD model evaluation for the baseline harness: replaces ASL
 // behind the reference's Model seam (AMPLModel.cpp:19-80) so the ACTUAL
-// reference binary can sweep the same .nl corpus the TPU framework uses
+// reference binary can sweep the same .nl corpus the JAX framework uses
 // (round-4 verdict item 1: a measured reference-side denominator for the
 // CUTEst parity claim).
 //

@@ -636,7 +636,7 @@ private:
 // ---------------------------------------------------------------------------
 // .nl-file model: ASL replacement via the in-repo .nl parser + postfix AD
 // (postfix_ad.hpp).  Lets the REFERENCE driver sweep the same corpus the
-// TPU framework solves (round-4: reference-side parity denominator).
+// JAX framework solves (round-4: reference-side parity denominator).
 // Mirrors the seam of bindings/AMPL/AMPLModel.cpp:19-80.
 // ---------------------------------------------------------------------------
 struct NLParsed {
@@ -959,7 +959,7 @@ int main(int argc, char* argv[]) {
    }
 
    if (which == "flagship_bench") {
-      // sequential single-core solves over the same randomized family the TPU
+      // sequential single-core solves over the same randomized family the JAX
       // bench uses (__graft_entry__._flagship with rng seed 0): a MEASURED
       // single-core Uno solves/s figure for BASELINE.md.  vars=N (default 8)
       // gives the mid-size (n=128...) baseline the n-throughput curve needs.

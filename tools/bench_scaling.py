@@ -5,8 +5,8 @@ Measures (a) the batch-sharded vmapped IPM and (b) the distributed
 Schur-complement scenario solve at mesh sizes P in {1, 2, 4, 8} on one
 fixed workload, and reports throughput + parallel efficiency vs P=1.
 
-On real hardware this runs over ICI; in this environment it runs on the
-8-virtual-device CPU mesh (JAX_PLATFORMS=cpu + xla_force_host_platform_
+On accelerators this runs over the device interconnect; on the CPU it
+runs on the 8-virtual-device mesh (JAX_PLATFORMS=cpu + xla_force_host_platform_
 device_count), which exercises the identical SPMD programs/collectives —
 absolute numbers are CPU-bound, efficiencies are indicative.
 

@@ -5,8 +5,8 @@ jax.distributed CPU mesh, exercising the cross-process collective path
 (DCN analogue) rather than single-process virtual devices only.
 
 Usage:
-  python tools/multiproc_mesh.py            # spawns 2 workers, writes
-                                            # MULTICHIP_r05.json
+  python tools/multiproc_mesh.py            # spawns 2 workers; worker 0
+                                            # prints the JSON report
   python tools/multiproc_mesh.py --worker I --port P   (internal)
 """
 
@@ -147,9 +147,7 @@ def worker(idx: int, port: int):
                  "(same silicon + the cross-process convergence-reduction "
                  "collective).  efficiency = T_local/T_global therefore "
                  "isolates the DCN-analogue collective overhead; 1.0 = "
-                 "free.  Real multi-HOST efficiency on TPU hardware "
-                 "remains modeled (SCALING_r03.json LogP bound), honestly "
-                 "labeled: one physical chip in this container")}
+                 "free.  Multi-card efficiency is not measured here")}
 
     # distributed-KKT IPM over the full 2-process mesh (parallel/dist_ldlt
     # shard_map; collectives cross the process boundary)
@@ -176,9 +174,7 @@ def worker(idx: int, port: int):
                         "and distributed-KKT IPM run to convergence with "
                         "cross-process collectives (round-4 item 8; round-5 adds the weak-scaling wall-clock curve)"),
                **report}
-        with open(os.path.join(os.path.dirname(__file__), "..",
-                               "MULTICHIP_r05.json"), "w") as fh:
-            json.dump(out, fh, indent=1)
+        print(json.dumps(out), flush=True)
     print(f"worker {idx}: {json.dumps(report)}", flush=True)
 
 

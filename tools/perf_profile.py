@@ -17,9 +17,9 @@ This script builds the same artifact from the in-repo measurements:
    per sweep row).
 
 Usage:
-  python tools/perf_profile.py [--refparity REFPARITY_r04.json]
-        [--sweeps SWEEP_r05_sqp.json,SWEEP_r05_ipopt.json,...]
-        [--out PROFILE_r05.json]
+  python tools/perf_profile.py [--refparity REFPARITY.json]
+        [--sweeps SWEEP_sqp.json,SWEEP_ipopt.json,...]
+        [--out PROFILE.json]
 """
 
 from __future__ import annotations
@@ -73,9 +73,9 @@ def main(argv):
             return v
         return default
 
-    refparity = opt("--refparity", "REFPARITY_r04.json")
+    refparity = opt("--refparity", "REFPARITY.json")
     sweeps = opt("--sweeps", None)
-    out_file = opt("--out", "PROFILE_r05.json")
+    out_file = opt("--out", "PROFILE.json")
 
     result = {"taus": TAUS}
 

@@ -1,15 +1,15 @@
 #!/usr/bin/env python
-"""Build REFPARITY_r04.json: side-by-side per-problem status of the ACTUAL
+"""Build REFPARITY.json: side-by-side per-problem status of the ACTUAL
 reference binary (uno_baseline nlsweep over the emitted .nl corpus) vs
-uno_tpu's own sweep (round-4 verdict item 1 — the measured denominator for
-the BASELINE 'CUTEst solved count within 1% of Uno ipopt' row).
+uno_tpu's own sweep (the measured denominator for the BASELINE
+'CUTEst solved count within 1% of Uno ipopt' row).
 
 Usage (single preset):
   python tools/refparity.py <ref_sweep.jsonl> <our_sweep.json> \
-      <nl_manifest.json> [--out REFPARITY_r04.json] [--preset ipopt]
+      <nl_manifest.json> [--out REFPARITY.json] [--preset ipopt]
 Usage (all presets):
   python tools/refparity.py --multi <refsweep_dir> <our_ipopt.json> \
-      <our_sqp.json> <nl_manifest.json> [--out REFPARITY_r04.json]
+      <our_sqp.json> <nl_manifest.json> [--out REFPARITY.json]
 
 ref_sweep.jsonl: one JSON object per line from `uno_baseline nlsweep`.
 our_sweep.json:  tools/sweep.py --out artifact (rows per preset).
@@ -134,7 +134,7 @@ def compare(preset, ref, ours, manifest):
 def main():
     import os
     argv = sys.argv[1:]
-    out_file = "REFPARITY_r04.json"
+    out_file = "REFPARITY.json"
     if "--out" in argv:
         i = argv.index("--out"); out_file = argv[i + 1]; del argv[i:i + 2]
     if "--multi" in argv:

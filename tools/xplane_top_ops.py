@@ -1,5 +1,6 @@
 #!/usr/bin/env python
-"""Minimal XSpace (.xplane.pb) parser: top self-time ops per device plane.
+"""Minimal XSpace (.xplane.pb) parser: top self-time ops per GPU device plane
+(`/device:GPU:N`).
 
 The full xprof/tensorboard converters in this image are protobuf-version
 incompatible, so this decodes the protobuf wire format directly (no
@@ -121,7 +122,7 @@ def main():
         if f != 1:
             continue
         pname, lines, meta = parse_plane(v)
-        if "TPU" not in pname and "/device" not in pname.lower():
+        if not pname.startswith("/device:GPU:"):
             continue
         per_line = plane_op_times(lines, meta)
         for lname, (times, counts) in per_line.items():

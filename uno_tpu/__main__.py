@@ -52,10 +52,8 @@ def main(argv=None):
         k, v = arg.split("=", 1)
         kv[k] = v
 
-    import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      str(Path.home() / ".cache" / "uno_tpu_xla"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from uno_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import uno_tpu
     from uno_tpu.options import Options, preset_overrides
 

@@ -59,7 +59,7 @@ def _sorted_insert(h, phi, h_new, phi_new):
 
 def _at_index(arr, idx):
     """arr[idx] for a traced scalar idx without a gather: one-hot contraction
-    over the (tiny, static) capacity axis — VPU-friendly under vmap."""
+    over the (tiny, static) capacity axis — elementwise under vmap."""
     iota = lax.iota(jnp.int32, arr.shape[-1])
     return jnp.sum(jnp.where(iota == idx, arr, 0.0), axis=-1)
 

@@ -11,11 +11,12 @@ Exceptions become flags in the carried state: UnstableRegularization -> the
 `failed` output (the IPM then enters feasibility restoration).
 
 The data-dependent refactorization count becomes a bounded `lax.while_loop`
-— each iteration is one dense blocked LDL^T on the MXU.  jit/vmap safe.
+— each iteration is one dense blocked LDL^T.  jit/vmap safe.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, NamedTuple
 
 import jax.numpy as jnp
@@ -25,73 +26,21 @@ from uno_tpu.linalg.ldlt import (LDLT, ldlt_factor, ldlt_factor_blocked,
                                  ldlt_factor_unrolled)
 
 
-def pick_factorizer(dim: int, block: int, ldlt_backend: str = "auto"):
+def pick_factorizer(dim: int, block: int):
     """Small KKT systems (CUTEst-class) are fully unrolled: static slices
     only, so vmapped batches compile to fused elementwise kernels with no
     dynamic-update-slice traffic.  Mid-size systems use the fori_loop column
-    variant; large systems the MXU-blocked panel variant — on TPU, the
-    VMEM-resident Pallas kernel (linalg/pallas_ldlt.py, ~1.6-1.9x the XLA
-    blocked path at n=512-1024)."""
+    variant; large systems the blocked panel variant, whose trailing update
+    is one matrix product per panel.
+
+    The thresholds (32, 64) and the default panel width
+    (`Options.ldlt_block_size` = 32) were chosen on another machine and are
+    not yet measured on the H100 (ROADMAP C7, A7)."""
     if dim <= 32:
         return ldlt_factor_unrolled
     if dim <= 64:
         return ldlt_factor
-    import jax as _jax
-    use_pallas = ldlt_backend == "pallas" or (
-        ldlt_backend == "auto" and 256 <= dim
-        and _jax.default_backend() == "tpu")
-    b = min(block, -(-dim // 8) * 8)
-    if use_pallas:
-        from uno_tpu.linalg.pallas_ldlt import (PALLAS_MAX_DIM,
-                                                ldlt_factor_pallas,
-                                                ldlt_factor_pallas_batched)
-        if dim <= PALLAS_MAX_DIM:
-            import jax.numpy as _jnp
-            from jax.custom_batching import custom_vmap
-            from uno_tpu.linalg.ldlt import LDLT as _LDLT
-
-            @custom_vmap
-            def fac_pallas_f32(A):
-                return ldlt_factor_pallas(A)
-
-            @fac_pallas_f32.def_vmap
-            def _fac_pallas_batch_rule(axis_size, in_batched, A):
-                # vmap of the single-instance kernel does not lower in
-                # Mosaic; route to the explicit batched-grid kernel when it
-                # measures faster than the vmapped XLA blocked path
-                # (dim >= 512 on v5e; below that the XLA path wins — the
-                # serial column chain dominates and XLA amortizes it over
-                # all lanes at once), else to the XLA path.
-                Af = A.reshape((-1,) + A.shape[-2:])
-                if dim >= 512:
-                    out = ldlt_factor_pallas_batched(Af)
-                else:
-                    import jax as _jax
-                    out = _jax.vmap(
-                        lambda M: ldlt_factor_blocked(M, block=b))(Af)
-                lead = A.shape[:-2]
-                out = _LDLT(out.L.reshape(lead + out.L.shape[-2:]),
-                            out.d.reshape(lead + out.d.shape[-1:]),
-                            out.num_pos.reshape(lead),
-                            out.num_neg.reshape(lead),
-                            out.num_zero.reshape(lead))
-                return out, _LDLT(True, True, True, True, True)
-
-            def fac_pallas(A):
-                # Mosaic lowers only 32-bit element types to scalars, so
-                # the VMEM kernel is f32-only; the default kkt_dtype is
-                # float64 (TPU-emulated), which must take the XLA blocked
-                # path instead of dying in Pallas lowering
-                if A.dtype != _jnp.float32:
-                    if ldlt_backend == "pallas":
-                        raise ValueError(
-                            "ldlt_backend='pallas' requires "
-                            "kkt_dtype='float32' (Mosaic is 32-bit only); "
-                            f"got {A.dtype}")
-                    return ldlt_factor_blocked(A, block=b)
-                return fac_pallas_f32(A)
-            return fac_pallas
-    return lambda A: ldlt_factor_blocked(A, block=b)
+    return partial(ldlt_factor_blocked, block=min(block, -(-dim // 8) * 8))
 
 
 class RegularizedFactorization(NamedTuple):
@@ -122,10 +71,9 @@ def regularize_and_factor(
     with num_pos/num_neg/num_zero fields (inertia) as a pytree of arrays."""
 
     factorize = factorizer if factorizer is not None else pick_factorizer(
-        expected_pos + expected_neg, block,
-        getattr(opts, "ldlt_backend", "auto"))
-    # mixed precision (MA57-style, MA57Solver.cpp:137-145): factor in f32 at
-    # native TPU speed, refine the solve in f64 (kkt_dtype option)
+        expected_pos + expected_neg, block)
+    # mixed precision (MA57-style, MA57Solver.cpp:137-145): factor in f32,
+    # refine the solve in f64 (kkt_dtype option)
     factor_dtype = jnp.dtype(getattr(opts, "kkt_dtype", "float64"))
 
     def factor(delta, eps):

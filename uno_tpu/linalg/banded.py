@@ -1,4 +1,4 @@
-"""Banded symmetric linear algebra: block-tridiagonal Cholesky on the MXU.
+"""Banded symmetric linear algebra: block-tridiagonal Cholesky.
 
 TPU-native replacement for the *sparse multifrontal* capability class of the
 reference's MA27/MA57/MUMPS solvers (MA57Solver.cpp:40-90 symbolic analysis,
@@ -11,7 +11,7 @@ control staircases) — and factorizes them as a BLOCK-TRIDIAGONAL Cholesky:
     A = [D_0  E_0^T           ]      scan over N = n/nb block steps,
         [E_0  D_1   E_1^T     ]      each step: one nb x nb Cholesky,
         [      E_1  D_2   ... ]      one triangular solve, one matmul
-                                     — all dense MXU ops, O(n*nb^2) FLOPs
+                                     — all dense matrix ops, O(n*nb^2) FLOPs
                                      and O(n*nb) memory vs dense O(n^3)/O(n^2).
 
 Positive definiteness doubles as the inertia test (same contract as the
@@ -34,14 +34,18 @@ import jax.numpy as jnp
 import numpy as np
 from jax import lax
 
+# f32 block products run at full f32 precision, never a reduced tensor-core
+# mode: the factorization's inertia check reads these results
+_HI = lax.Precision.HIGHEST
+
 
 def pick_block_size(bandwidth: int) -> int:
-    """Smallest TPU-friendly (multiple-of-8) block STRICTLY greater than
-    the half-bandwidth, as band_to_blocks requires.  Measured on v5e:
-    larger blocks only lengthen the sequential critical path (the scan is
-    serial-latency-bound at ~1 us per pivot regardless of blocking), so
-    the smallest legal block wins on every backend; depth reduction comes
-    from cyclic reduction (btd_cholesky_cr), not blocking."""
+    """Smallest multiple-of-8 block STRICTLY greater than the
+    half-bandwidth, as band_to_blocks requires.  Larger blocks only
+    lengthen the sequential critical path (the scan is serial-latency-bound
+    per pivot regardless of blocking); depth reduction comes from cyclic
+    reduction (btd_cholesky_cr), not blocking.  Chosen on another machine
+    and not yet measured on the H100 (ROADMAP A8)."""
     return (int(bandwidth) // 8 + 1) * 8
 
 
@@ -88,23 +92,24 @@ def band_to_blocks(band: jnp.ndarray, nb: int):
     bandp = jnp.concatenate([band, pad], axis=1)
 
     # Packing WITHOUT gathers (profiled: the fancy-indexed gather version
-    # cost 2.7 ms at n=4096 on v5e — more than the factorization itself).
+    # cost more than the factorization itself).
     # With T[d, i, c] = band[d, i*nb + c], the block entries are
     #   D[i][r, c] = band[r-c, i*nb+c]      (0 <= r-c <= b)
     #   E[i][r, c] = band[nb+r-c, i*nb+c]   (1 <= nb+r-c <= b)
     # i.e. small placement CONTRACTIONS  D = einsum('drc,dic->irc', P, T)
-    # with 0/1 placement tensors P — MXU-friendly, no scatter/gather.
+    # with 0/1 placement tensors P — plain contractions, no scatter/gather.
     T = bandp.reshape(b + 1, N, nb)
     r = np.arange(nb)[:, None]
     c = np.arange(nb)[None, :]
     d = np.arange(b + 1)[:, None, None]
     PD = ((r - c)[None] == d).astype(band.dtype)          # (b+1, nb, nb)
-    Dl = jnp.einsum("drc,dic->irc", jnp.asarray(PD), T)
+    Dl = jnp.einsum("drc,dic->irc", jnp.asarray(PD), T, precision=_HI)
     D = Dl + jnp.triu(Dl.transpose(0, 2, 1), 1)
 
     PE = ((nb + r - c)[None] == d).astype(band.dtype)
     if N > 1:
-        E = jnp.einsum("drc,dic->irc", jnp.asarray(PE), T[:, :-1])
+        E = jnp.einsum("drc,dic->irc", jnp.asarray(PE), T[:, :-1],
+                       precision=_HI)
         E = jnp.concatenate([E, jnp.zeros((1, nb, nb), dtype=band.dtype)])
     else:
         E = jnp.zeros((1, nb, nb), dtype=band.dtype)
@@ -124,7 +129,7 @@ def btd_cholesky(D: jnp.ndarray, E: jnp.ndarray) -> BTDFactor:
         L_i = jnp.linalg.cholesky(D_i - Ssub)
         # Ct_i = L_i^{-1} E_i^T
         Ct_i = jax.scipy.linalg.solve_triangular(L_i, E_i.T, lower=True)
-        return Ct_i.T @ Ct_i, (L_i, Ct_i)
+        return jnp.matmul(Ct_i.T, Ct_i, precision=_HI), (L_i, Ct_i)
 
     _, (L, Ct) = lax.scan(step, jnp.zeros((nb, nb), dtype=D.dtype), (D, E))
     ok = jnp.all(jnp.isfinite(L))
@@ -187,12 +192,11 @@ class CRFactor(NamedTuple):
     """Cyclic-reduction 'factorization' of an SPD block-tridiagonal matrix.
 
     The sequential BTD Cholesky (btd_cholesky) sits on the serial critical
-    path of ~n pivots (~1 us each on v5e => ~4 ms at n=4096).  Cyclic
-    reduction eliminates all ODD blocks of a level simultaneously (vmapped
-    Cholesky + MXU-batched block products), halving the system per level:
-    depth log2(N) x O(nb) instead of N x O(nb) — the classic parallel
-    tridiagonal algorithm, here blockwise.  ~4x the flops of the scan
-    variant, all batched, so the MXU eats them.
+    path of ~n pivots.  Cyclic reduction eliminates all ODD blocks of a
+    level simultaneously (vmapped Cholesky + batched block products),
+    halving the system per level: depth log2(N) x O(nb) instead of
+    N x O(nb) — the classic parallel tridiagonal algorithm, here blockwise.
+    ~4x the flops of the scan variant, all batched matrix products.
 
     levels: per level l a tuple (Lo_chol, M1, M2, L_o, LT_o1) of
         (N_l/2, nb, nb) arrays — the odd-block Cholesky factors and the
@@ -257,10 +261,11 @@ def btd_cholesky_cr(D: jnp.ndarray, E: jnp.ndarray) -> CRFactor:
         # M2_k = L_{2k+1}^T D_{2k+1}^{-1} = (D_{2k+1}^{-1} L_{2k+1})^T
         M2 = swapT(_chol_solve_b(Co_safe, Lo))
 
-        D_new = De - M1 @ swapT(Le) - M2 @ Lo
+        D_new = (De - jnp.matmul(M1, swapT(Le), precision=_HI)
+                 - jnp.matmul(M2, Lo, precision=_HI))
         Lo_shift = jnp.concatenate(
             [jnp.zeros((1, nb, nb), dtype=D.dtype), Lo[:-1]])
-        L_new = -M1 @ Lo_shift
+        L_new = -jnp.matmul(M1, Lo_shift, precision=_HI)
 
         # back-substitution data: x_o needs L_{o+1}^T = L_even[k+1]^T
         LT_next = swapT(jnp.concatenate(

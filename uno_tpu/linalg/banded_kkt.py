@@ -165,10 +165,10 @@ def make_banded_kkt_backend(n_full: int, n0: int, m: int,
         band = jb.at[: kkt.H_band.shape[0], :].add(kkt.H_band)
         band = band.at[0, :].add(kkt.diag0)
         D, E = band_to_blocks(band, nb)
-        # depth selection (measured on v5e): the sequential scan wins for
-        # few blocks; cyclic reduction's log2(N) depth wins once the block
-        # count is large (n=4096/nb=32: CR 1.2 ms vs scan 1.9 ms; n=8192:
-        # 1.7 vs 3.6; n=1280: scan 0.29 vs CR 0.60)
+        # depth selection: the sequential scan wins for few blocks; cyclic
+        # reduction's log2(N) depth wins once the block count is large.
+        # The threshold of 64 blocks was chosen on another machine and is
+        # not yet measured on the H100 (ROADMAP A8)
         if D.shape[0] >= 64:
             btd = btd_cholesky_cr(D, E)
         else:

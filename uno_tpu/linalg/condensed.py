@@ -18,10 +18,9 @@ rows by O(tau * |w|); the IPM's f64 iterative refinement against the TRUE
 augmented matrix (solvers/ipm.py) removes that error, so the condensed
 factor effectively acts as a preconditioner.
 
-Why on TPU: Cholesky is a single fused MXU-native XLA kernel with no
-pivot-order serialization and no inertia bookkeeping; measured ~2.2x the
-blocked LDL^T at n >= 2048 on a v5e chip (f32), and the delta loop needs
-no pivot-sign reduction.  NOT recommended for vmapped batches of tiny
+Why: Cholesky is a single library kernel with no pivot-order
+serialization and no inertia bookkeeping, and the delta loop needs no
+pivot-sign reduction.  NOT recommended for vmapped batches of tiny
 problems: XLA's triangular solve serializes badly under vmap (see
 linalg/ldlt.py), which is why the unrolled LDL^T remains the batched
 default.
@@ -38,6 +37,7 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 
 
 class LiftedKKT(NamedTuple):
@@ -60,7 +60,8 @@ def make_lifted_kkt_backend(n: int, m: int, tau: float = 1e-8):
             J = A[n:, :n]
             C = -jnp.diagonal(A[n:, n:])          # dual block is -(C)
             cinv = 1.0 / (C + tau)
-            M = Hd + (J.T * cinv[None, :]) @ J
+            M = Hd + jnp.matmul(J.T * cinv[None, :], J,
+                                precision=lax.Precision.HIGHEST)
         else:
             J = jnp.zeros((0, n), dtype=A.dtype)
             cinv = jnp.zeros((0,), dtype=A.dtype)

@@ -5,9 +5,10 @@ TPU-native replacement for the reference's sparse multifrontal solvers
 MA57Solver.cpp, MUMPSSolver.cpp): analyze/factorize/solve/inertia behind one
 interface (DirectSymmetricIndefiniteLinearSolver.hpp:12-26).
 
-Design rationale (not a port): TPUs want dense, static-shaped, batched
-linear algebra.  CUTEst-class KKT systems (dimension n+m up to a few
-thousand) are faster dense on the MXU than any scatter/gather sparse scheme.
+Design rationale (not a port): accelerators want dense, static-shaped,
+batched linear algebra.  CUTEst-class KKT systems (dimension n+m up to a few
+thousand) are faster dense on matrix units than any scatter/gather sparse
+scheme.
 We use an *unpivoted* right-looking LDL^T: pivoting is data-dependent control
 flow that XLA cannot vectorize, and the surrounding primal-dual inertia
 correction (Uno's PrimalDualRegularization.hpp:133-226, same role as in
@@ -17,7 +18,7 @@ KKT + regularized LDL^T).  The inertia is read off the signs of D.
 
 Two implementations:
   * `ldlt_factor`        — column-at-a-time rank-1 updates (reference impl)
-  * `ldlt_factor_blocked`— panel factorization + MXU trailing update
+  * `ldlt_factor_blocked`— panel factorization + matmul trailing update
 Both are jit/vmap-compatible (static shapes, fori_loop).
 """
 
@@ -93,9 +94,9 @@ def ldlt_factor_unrolled(A: jnp.ndarray, zero_pivot_rtol: float = 1e-32) -> LDLT
 
     For small KKT dimensions (CUTEst-class, n <= ~32) this beats the
     fori_loop variant under vmap: every slice is STATIC, so XLA emits fused
-    elementwise kernels instead of per-column dynamic-update-slices (measured
-    ~81 ms of the batched IPM solve before this rewrite), and the trailing
-    update shrinks with j (half the flops of the full-matrix rank-1 form).
+    elementwise kernels instead of per-column dynamic-update-slices, and the
+    trailing update shrinks with j (half the flops of the full-matrix
+    rank-1 form).
     """
     n = A.shape[-1]
     M = A
@@ -115,15 +116,23 @@ def ldlt_factor_unrolled(A: jnp.ndarray, zero_pivot_rtol: float = 1e-32) -> LDLT
     return LDLT(L, d, pos, neg, zero)
 
 
-@partial(jax.jit, static_argnames=("block", "zero_pivot_rtol"))
+# Precision of the trailing-update products.  HIGHEST keeps f32 products
+# out of reduced-precision tensor-core modes (TF32 on the H100): inertia is
+# read off these pivots.  On the CPU and in f64 it changes nothing.
+FACTOR_PRECISION = lax.Precision.HIGHEST
+
+
+@partial(jax.jit, static_argnames=("block", "zero_pivot_rtol", "precision"))
 def ldlt_factor_blocked(A: jnp.ndarray, block: int = 32,
-                        zero_pivot_rtol: float = 1e-32) -> LDLT:
+                        zero_pivot_rtol: float = 1e-32,
+                        precision=FACTOR_PRECISION) -> LDLT:
     """Blocked right-looking LDL^T: sequential panel factorization (width
-    `block`) followed by one (n,b)x(b,n) MXU matmul trailing update per panel.
+    `block`) followed by one (n,b)x(b,n) matmul trailing update per panel.
 
     The matrix is padded with a +1 identity tail to a multiple of `block`;
     the padding contributes `pad` known positive pivots which are removed
-    from the reported inertia.
+    from the reported inertia.  `precision` is that of the trailing-update
+    products; chip_smoke.py passes DEFAULT to record what TF32 would cost.
     """
     n0 = A.shape[-1]
     nb = -(-max(n0, 1) // block)
@@ -162,9 +171,10 @@ def ldlt_factor_blocked(A: jnp.ndarray, block: int = 32,
     def outer_body(k, carry):
         M, L, d = carry
         P, dpan = factor_panel(M, k)
-        # trailing update on the MXU; already-factored region gets garbage
-        # that is never read again
-        M = M - jnp.dot(P * dpan[None, :], P.T, preferred_element_type=M.dtype)
+        # trailing update as one matrix product; already-factored region
+        # gets garbage that is never read again
+        M = M - jnp.dot(P * dpan[None, :], P.T, precision=precision,
+                        preferred_element_type=M.dtype)
         L = lax.dynamic_update_slice(L, P, (0, k * block))
         d = lax.dynamic_update_slice(d, dpan, (k * block,))
         return M, L, d
@@ -185,10 +195,11 @@ def ldlt_solve(fac: LDLT, rhs: jnp.ndarray) -> jnp.ndarray:
     """Solve A x = rhs given A = L D L^T.  rhs may be (n,) or (n, k).
 
     Small systems (n <= 32, the batched CUTEst-class hot path) use fully
-    unrolled forward/backward substitution: XLA's TriangularSolve on TPU
-    lowers to a dynamic-slice loop that serializes badly under vmap, while
-    the unrolled form is n^2 static-slice FMAs that fuse into a handful of
-    VPU kernels across the batch lanes."""
+    unrolled forward/backward substitution: n^2 static-slice FMAs that fuse
+    into a handful of elementwise kernels across the batch lanes, where a
+    TriangularSolve can lower to a dynamic-slice loop that serializes under
+    vmap.  The n <= 32 cut was chosen on another machine and is not yet
+    measured on the H100 (ROADMAP C7)."""
     n = rhs.shape[0]
     if n <= 32 and rhs.ndim == 1:
         z = jnp.zeros_like(rhs)
@@ -212,5 +223,27 @@ def ldlt_refine(A: jnp.ndarray, fac: LDLT, rhs: jnp.ndarray,
                 x: jnp.ndarray) -> jnp.ndarray:
     """One step of iterative refinement (mirrors MA57's option,
     reference MA57Solver.cpp:137-145); essential for f32 factorizations."""
-    r = rhs - A @ x
+    r = rhs - jnp.matmul(A, x, precision=FACTOR_PRECISION)
     return x + ldlt_solve(fac, r)
+
+
+def barrier_kkt_like(n: int, m: int, seed: int, spread: float = 9):
+    """Test/bench generator (numpy f64): a symmetric indefinite matrix with
+    barrier-KKT structure — H + Sigma (diagonal 1e-spread..1e+spread) on the
+    (1,1) block, J coupling, small -eps dual block — the spectrum the
+    inertia-correction loop actually sees."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    dim = n + m
+    H = rng.standard_normal((n, n)) * 0.1
+    H = (H + H.T) / 2
+    H[np.diag_indices(n)] = 10.0 ** rng.uniform(-spread, spread, n)
+    J = rng.standard_normal((m, n))
+    K = np.zeros((dim, dim))
+    K[:n, :n] = H
+    K[n:, :n] = J
+    K[:n, n:] = J.T
+    K[np.diag_indices(dim)[0][n:], np.diag_indices(dim)[1][n:]] = \
+        -(10.0 ** rng.uniform(-8, -2, m))
+    return K

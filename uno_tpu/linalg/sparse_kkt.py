@@ -7,15 +7,15 @@ REFORMULATED problem's Lagrangian-Hessian / Jacobian sparsity at a couple
 of random points (structural with probability 1 — the same argument as
 transforms.detect_structure), assemble the augmented-KKT pattern, run the
 symbolic analysis, and decide sparse-vs-dense from the *scheduled* (padded)
-flop count — a TPU factorization's honest cost model, since padding is
-executed work on this hardware.
+flop count — the honest cost model of a dense-panel factorization, since
+padding is executed work.
 
 Routing outcomes (recorded in `last_detection_report` for diagnosability):
   * "sparse"  — plan built, padded flops beat dense by the margin; the
                 backend replaces the dense LDL^T inside
                 regularize_and_factor (same inertia contract).
   * "dense"   — the pattern is genuinely dense (elec/chandheq-class
-                all-pairs coupling) or the schedule does not beat the MXU
+                all-pairs coupling) or the schedule does not beat the
                 dense path at this size; dense IS what MA57's fronts
                 degenerate to on such problems, so this is the honest
                 equivalent, now *measured* rather than assumed.
@@ -111,12 +111,11 @@ def try_make_sparse_kkt_backend(prob, m: int, opts, force: bool = False,
     force=True (kkt_formulation="sparse") skips the economics and builds
     the backend whenever a plan exists (the user asked for it by name).
 
-    min_n_auto: measured TPU-v5e crossover (SPARSE_KKT_r05.json): both the
-    dense blocked LDL^T and the supernodal scan are bound by ~N sequential
-    rank-1 micro-steps, so below N~3-4k the MXU dense path wins outright
-    (N=553: dense 0.31 ms vs sparse 2.9 ms) regardless of the flop count;
-    sparse overtakes where dense's O(N^3) flops dominate its latency
-    (N=4096: parity; N=8192: sparse 97 ms vs dense 446 ms = 4.6x)."""
+    min_n_auto: both the dense blocked LDL^T and the supernodal scan are
+    bound by ~N sequential rank-1 micro-steps, so below a crossover N the
+    dense path wins regardless of the flop count; sparse overtakes where
+    dense's O(N^3) flops dominate its latency.  The value 3072 was chosen
+    on another machine and is not yet measured on the H100 (ROADMAP A8)."""
     global last_detection_report
     N = prob.n + m
     if N > max_n:
@@ -131,9 +130,8 @@ def try_make_sparse_kkt_backend(prob, m: int, opts, force: bool = False,
     if N < min_n_auto and not force:
         last_detection_report = SparseDetectionReport(
             route="dense",
-            reason=(f"N={N} below the measured TPU crossover "
-                    f"({min_n_auto}): the dense MXU path is faster at this "
-                    "size (SPARSE_KKT_r05.json)"),
+            reason=(f"N={N} below the sparse crossover ({min_n_auto}): "
+                    "the dense path is faster at this size"),
             N=N)
         return None
     pat, is_dual = probe_kkt_pattern(prob, m)
@@ -153,7 +151,7 @@ def try_make_sparse_kkt_backend(prob, m: int, opts, force: bool = False,
         last_detection_report = SparseDetectionReport(
             route="dense",
             reason=(f"scheduled flops {padded:.3g} vs dense {dense:.3g}: "
-                    "the padded supernodal schedule does not beat the MXU "
+                    "the padded supernodal schedule does not beat the "
                     "dense path at this size"),
             N=N, density=density, nnz_factor=plan.nnz_factor,
             padded_flops=padded, dense_flops=dense,

@@ -1,11 +1,10 @@
-"""Scalable CUTEst-style problem families (VERDICT item 2: widen the
-validation corpus toward the reference's CUTEst-429 benchmark surface,
-/root/reference/README.md:82-89).
+"""Scalable CUTEst-style problem families, to widen the validation corpus
+toward the reference's CUTEst-429 benchmark surface (its README.md:82-89).
 
 Each family is a classic scalable test problem from the public literature
 (Moré-Garbow-Hillstrom 1981; Conn-Gould-Toint CUTE(st); Lukšan-Vlček 1999
 sparse equality-constrained set; COPS 3.0), encoded from its published
-mathematical formulation with vectorized jnp expressions (VPU/MXU-friendly:
+mathematical formulation with vectorized jnp expressions (vectorization-friendly:
 shifted-slice sums, no Python-level per-element loops).
 
 Instances register into the main library registry as "<family>_n<N>" for
@@ -645,15 +644,15 @@ def orthreg(n):
 @family("elec", min_n=9)
 def elec(n):
     """COPS 3 'elec': K point charges on the unit sphere minimizing Coulomb
-    energy (pairwise O(K^2), MXU-friendly); K = n//3."""
+    energy (pairwise O(K^2)); K = n//3."""
     K = max(3, n // 3)
 
     # masked full-matrix form instead of d2[triu_indices]: the gather's
-    # gradient is a scatter-add, which XLA:TPU expands into a sort +
-    # (u32,u32) prefix scan whose scoped-VMEM estimate overflows the 16 MB
-    # budget at K=33 ("Scoped allocation 19.07M ... exceeded scoped vmem
-    # limit", see PARITY round-5 regressions) — the static mask computes the
-    # identical value with pure VPU elementwise ops and a dense reduce.
+    # gradient is a scatter-add, which another machine's compiler could not
+    # fit in its on-chip memory at K=33; the static mask computes the
+    # identical value with elementwise ops and a dense reduce.  Not yet
+    # re-decided on the H100: revert to the gather if it compiles and
+    # solves there (ROADMAP C8).
     triu_mask = np.triu(np.ones((K, K), dtype=bool), 1)
 
     def f(z):
@@ -788,7 +787,7 @@ def dblintegrator(n):
 
 
 # ===========================================================================
-# round-2 widening toward the CUTEst-429 surface (VERDICT item 2):
+# round-2 widening toward the CUTEst-429 surface:
 # 16 further classic families from MGH-1981 / CUTE(st) / COPS 3.0,
 # encoded from the published formulations with vectorized jnp expressions.
 # ===========================================================================

@@ -1,4 +1,4 @@
-"""Corpus widening toward the CUTEst-429 surface (round-3, VERDICT item 4):
+"""Corpus widening toward the CUTEst-429 surface (round 3):
 
 * the Moré-Garbow-Hillstrom (1981) nonlinear least-squares collection
   (the backbone of CUTEst's *LS problems), with the paper's certified

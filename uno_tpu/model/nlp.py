@@ -147,7 +147,7 @@ class NLP:
 
     def constraint_jacobian(self, x, params=None):
         """Dense (m, n) Jacobian.  Dense is deliberate: CUTEst-scale problems
-        map onto the MXU better dense than scatter/gather sparse."""
+        map onto matrix units better dense than scatter/gather sparse."""
         p = self.params if params is None else params
         if self.m == 0:
             return jnp.zeros((0, self.n), dtype=x.dtype)

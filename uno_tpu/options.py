@@ -19,6 +19,9 @@ from typing import Optional
 import numpy as np
 
 
+LDLT_BACKENDS = ("auto", "distributed")
+
+
 @dataclass(frozen=True)
 class Options:
     # ---- ingredient selection (the six orthogonal ingredients) -------------
@@ -77,7 +80,9 @@ class Options:
     LS_scale_duals_with_step_length: bool = True
 
     # ---- regularization (DefaultOptions.cpp:115-131) -----------------------
-    regularization_failure_threshold: float = 1e38  # reference: 1e40; capped into f32 range for TPU f64-emulation
+    # reference: 1e40; capped into f32 range for a machine whose f64 was
+    # emulated in f32 pairs, not yet re-decided on the H100 (ROADMAP C3)
+    regularization_failure_threshold: float = 1e38
     regularization_initial_value: float = 1e-4
     regularization_increase_factor: float = 2.0
     primal_regularization_initial_factor: float = 1e-4
@@ -138,15 +143,19 @@ class Options:
     logger: str = "SILENT"
     print_solution: bool = False
 
-    # ---- TPU-native execution options (no reference equivalent) ------------
+    # ---- accelerator execution options (no reference equivalent) ----------
     dtype: str = "float64"           # factorization/compute dtype
-    # KKT factorization dtype: "float32" factors at native TPU speed and
+    # KKT factorization dtype: "float32" factors in single precision and
     # recovers f64 accuracy with iterative refinement (MA57-style)
     kkt_dtype: str = "float64"
     kkt_refinement_steps: int = 1            # f64 refinements after f32 solve
     LS_batch_candidates: int = 1             # backtracking alphas per LS trip
-    ldlt_backend: str = "auto"       # auto | xla | pallas | distributed
-    ldlt_block_size: int = 32        # blocked LDL^T panel width
+    # "auto" = pick_factorizer by KKT dim | "distributed" = the KKT
+    # factorization sharded over a mesh (parallel/dist_ldlt.py)
+    ldlt_backend: str = "auto"
+    # blocked LDL^T panel width; chosen on another machine and not yet
+    # measured on the H100 (ROADMAP A7)
+    ldlt_block_size: int = 32
     dist_ldlt_block: int = 64        # distributed-KKT panel width (per chip)
     # "augmented" dense LDL^T | "lifted" condensed Cholesky | "banded"
     # structured block-tridiagonal Cholesky (requires NLP.structure) |
@@ -154,7 +163,7 @@ class Options:
     # ordering + supernodal schedule, linalg/sparse_ldlt.py) |
     # "auto" = banded when the model declares structure; with
     # auto_permute=True, probes sparsity and routes sparse when the
-    # scheduled flops beat the dense MXU path; else augmented
+    # scheduled flops beat the dense path; else augmented
     kkt_formulation: str = "auto"
     # automatic RCM bandwidth-reduction over the DETECTED Hessian/Jacobian
     # sparsity (transforms.detect_structure): structured models need not
@@ -169,6 +178,11 @@ class Options:
     sqp_driver: str = "auto"
     lifted_kkt_relaxation: float = 1e-8  # tau; use ~1e-5 with f32 factors
     bound_infinity: float = 1e20     # |bound| >= this is treated as infinite
+
+    def __post_init__(self):
+        if self.ldlt_backend not in LDLT_BACKENDS:
+            raise ValueError(f"unknown ldlt_backend {self.ldlt_backend!r}; "
+                             f"available: {list(LDLT_BACKENDS)}")
 
     def replace(self, **kwargs) -> "Options":
         return dataclasses.replace(self, **kwargs)

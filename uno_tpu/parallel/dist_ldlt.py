@@ -11,8 +11,8 @@ Design (ScaLAPACK-style, TPU-native):
     work across the mesh axis.
   * Right-looking factorization: at step g every device factors its slot's
     panel (uniform SPMD program; only the owner's result is used), the
-    factored panel + pivots are broadcast with a masked `psum` over ICI,
-    and each device applies one MXU matmul to its local trailing columns.
+    factored panel + pivots are broadcast with a masked `psum` over the device interconnect,
+    and each device applies one matmul to its local trailing columns.
     Communication: G = n/block panel broadcasts of (n, block).
   * Inertia: the pivot vector d is replicated as it is produced, so the
     same inertia-corrected regularization loop used by the IPM applies
@@ -188,6 +188,7 @@ def make_dist_ldlt(mesh: Mesh, n: int, axis: str = "kkt", block: int = 64,
             prow = jnp.take(panel, gcol, axis=0)             # (nloc, block)
             upd = lax.dot_general(panel * dpan[None, :], prow,
                                   (((1,), (1,)), ((), ())),
+                                  precision=lax.Precision.HIGHEST,
                                   preferred_element_type=work.dtype)
             mask = (jnp.asarray(rest_rows)[:, None]
                     & (gpanel > g)[None, :])
@@ -207,7 +208,8 @@ def make_dist_ldlt(mesh: Mesh, n: int, axis: str = "kkt", block: int = 64,
             # owner's update of everything below the panel + the solved block
             below = jnp.asarray(row_iota >= (g + 1) * block)
             l_below = jnp.where(below[:, None], pnl, 0.0)
-            delta = l_below @ y_blk \
+            delta = jnp.matmul(l_below, y_blk,
+                               precision=lax.Precision.HIGHEST) \
                 - jnp.where(jnp.asarray((row_iota >= g * block)
                                         & (row_iota < (g + 1) * block)),
                             lax.dynamic_update_slice(jnp.zeros_like(y),

@@ -11,9 +11,9 @@ scenario/block-arrow KKT systems from multi-scenario stochastic NLPs,
         [ B_1^T .. B_S^T K_0 ],
 
 with one scenario block per device.  Each K_s is factorized locally (dense
-blocked LDL^T on the MXU), the coupling Schur complement
-S_0 = K_0 - sum_s B_s^T K_s^{-1} B_s is reduced with `psum` over ICI, and
-the back-substitution is local again.  The inertia of K is the sum of the
+blocked LDL^T), the coupling Schur complement
+S_0 = K_0 - sum_s B_s^T K_s^{-1} B_s is reduced with `psum` over the
+device interconnect, and the back-substitution is local again.  The inertia of K is the sum of the
 block inertias plus that of S_0 (Haynsworth), so the same inertia-corrected
 regularization loop used by the IPM applies unchanged.
 
@@ -77,7 +77,7 @@ def make_sharded_schur_solver(mesh: Mesh, nb: int, n0: int,
     """Builds a shard_map'ed factor+solve over the mesh's scenario axis.
 
     Each device holds its scenario slice of (Ks, Bs, rhs_s); K_0 and rhs0 are
-    replicated.  The Schur reduction is a `psum` over ICI.  Returns
+    replicated.  The Schur reduction is a `psum` over the devices.  Returns
     solve(Ks, Bs, K0, rhs_s, rhs0) -> (xs, x0, inertia_triple), jittable.
     """
     try:
@@ -90,7 +90,7 @@ def make_sharded_schur_solver(mesh: Mesh, nb: int, n0: int,
         facs = jax.vmap(lambda K: ldlt_factor_blocked(K, block=block))(Ks)
         Y = jax.vmap(ldlt_solve)(facs, Bs)
         contrib = jnp.einsum("sij,sik->jk", Bs, Y)
-        contrib = lax.psum(contrib, axis)                   # ICI reduction
+        contrib = lax.psum(contrib, axis)                   # cross-device reduction
         S0 = K0 - contrib
         fac0 = ldlt_factor_blocked(S0, block=block)         # replicated factor
         r = jax.vmap(ldlt_solve)(facs, rhs_s)

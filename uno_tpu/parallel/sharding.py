@@ -5,7 +5,7 @@ parallel MUMPS, SURVEY.md §2.15/§5.8), redesigned for the actual scale axis
 of this workload: a batch of independent NLP instances laid out over a
 1-D `jax.sharding.Mesh` axis ("batch").  Each instance's KKT factorization
 stays on one chip (no cross-chip linear algebra needed at CUTEst scale);
-convergence reductions (`num_solved`) are XLA collectives over ICI.
+convergence reductions (`num_solved`) are XLA collectives over the devices.
 
 The distributed Schur-complement KKT for block-structured NLPs (scale axis 2
 of BASELINE.md) builds on the same mesh; see uno_tpu/parallel/schur.py.

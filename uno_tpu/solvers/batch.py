@@ -1,6 +1,6 @@
 """Batched (vmapped) IPM driver with per-instance convergence masks.
 
-The reference is strictly single-instance single-core; the TPU-native scale
+The reference is strictly single-instance single-core; the accelerator scale
 axis (SURVEY.md §2.15, BASELINE.md) is a vmapped batch of independent NLP
 instances of the same structure (same functions/shapes, different x0/params),
 optionally sharded across chips.
@@ -60,12 +60,11 @@ def build_batch_ipm(nlp: NLP, opts: Options, params_example=None,
     slacks are initialized internally.
 
     batch_last (default): map the batch over the TRAILING axis of every
-    array.  On TPU the vector lane dimension is the last one (128 lanes);
-    batch-first layouts pad each tiny solver dimension (n ~ 10..100) up to a
-    full lane tile and waste ~90+% of the memory bandwidth — measured 81x
-    slower for the factorization kernel at B=16k, n=13.  The wrapper
-    transposes at the boundary, so callers still pass/receive batch-first."""
-    opts = _batch_safe_backend(opts)
+    array, so the batch is the contiguous minor dimension and each tiny
+    solver dimension (n ~ 10..100) is not padded to a vector tile.  This
+    default was chosen on another machine and is not yet measured on the
+    H100 (ROADMAP C7).  The wrapper transposes at the boundary, so callers
+    still pass/receive batch-first."""
     prob, ws, step, _ = build_ipm(nlp, opts)
     n_slack = prob.n - nlp.n
 
@@ -79,17 +78,6 @@ def build_batch_ipm(nlp: NLP, opts: Options, params_example=None,
 
     return prob, _vmap_solver(solve_one, nlp.n, params_example, batch_last,
                               clock=getattr(step, "run_clock", None))
-
-
-def _batch_safe_backend(opts):
-    """Batched (vmapped) solves must not route through the Pallas LDL^T:
-    the Mosaic kernel is written for a single VMEM-resident instance and
-    fails to lower under vmap (observed at dim 642: 'failed to legalize
-    func.return').  'auto' resolves to the XLA blocked path instead; an
-    explicit ldlt_backend='pallas' is honored (and will error loudly)."""
-    if opts.ldlt_backend == "auto":
-        return opts.replace(ldlt_backend="blocked")
-    return opts
 
 
 def _vmap_solver(solve_one, n, params_example, batch_last, clock=None):
@@ -137,15 +125,14 @@ def _vmap_solver(solve_one, n, params_example, batch_last, clock=None):
 def build_batch_sqp(nlp: NLP, opts: Options, params_example=None,
                     batch_last: bool = True):
     """Batched (vmapped) fused SQP: every TR+filter/funnel preset
-    (filtersqp, funnelsqp, filterslp) rides the same batch axis as the IPM
-    (VERDICT round-1 item 3).  Returns (prob, run) like build_batch_ipm."""
+    (filtersqp, funnelsqp, filterslp) rides the same batch axis as the
+    IPM.  Returns (prob, run) like build_batch_ipm."""
     from uno_tpu.solvers.sqp_fused import (build_byrd_fused, build_sqp_fused,
                                            make_initial_byrd_state,
                                            make_initial_sqp_state)
     from uno_tpu.solvers.ipm import canonicalize_state
 
     from uno_tpu.api import is_byrd_family
-    opts = _batch_safe_backend(opts)
     if is_byrd_family(opts):
         prob, ws, step, _ = build_byrd_fused(nlp, opts)
         make_init = make_initial_byrd_state
@@ -301,14 +288,13 @@ def build_bucketed_batch_ipm(nlp: NLP, opts: Options, params_example=None,
                              segment: int = 4, min_bucket: int = 1024):
     """Iteration-count bucketing for the batched IPM: a vmapped
     `lax.while_loop` runs every instance for max-over-batch iterations
-    (converged lanes are frozen by select but still occupy VPU lanes).
+    (converged lanes are frozen by select but still occupy batch lanes).
     With a long-tailed iteration distribution (e.g. mean 9.3 / max 16 on
     the bench family) that wastes ~40% of the lanes; the bucketed driver
     retires them (see _bucketed_runner).
 
     Returns (prob, run) with run(x0_batch, params_batch) -> final state
     (batch-first), like build_batch_ipm."""
-    opts = _batch_safe_backend(opts)
     prob, ws, step, _ = build_ipm(nlp, opts)
     n_slack = prob.n - nlp.n
 
@@ -339,7 +325,6 @@ def build_bucketed_batch_sqp(nlp: NLP, opts: Options, params_example=None,
     from uno_tpu.solvers.ipm import canonicalize_state
 
     from uno_tpu.api import is_byrd_family
-    opts = _batch_safe_backend(opts)
     if is_byrd_family(opts):
         prob, ws, step, _ = build_byrd_fused(nlp, opts)
         make_init = make_initial_byrd_state

@@ -274,9 +274,8 @@ def build_qp_solver(struct: QPStructure, opts: Options,
                                     axis=1)
             lam = 1e-10 * (1.0 + jnp.max(jnp.abs(A)))
             AtA = A.T @ A + lam * jnp.eye(A.shape[1])
-            # solve the SPD normal equations with the in-repo LDL^T: TPU's
-            # XLA only implements LuDecomposition (jnp.linalg.solve) for
-            # f32, and this runs in f64
+            # solve the SPD normal equations with the in-repo LDL^T (the
+            # same factorization as every other KKT solve, in f64)
             from uno_tpu.linalg.ldlt import ldlt_factor
             w = ldlt_solve(ldlt_factor(AtA), A.T @ rvec)
             if m:

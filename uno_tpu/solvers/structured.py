@@ -42,11 +42,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax import lax
+from jax.sharding import Mesh
 
 from uno_tpu.ingredients import barrier as bar
-from uno_tpu.linalg.ldlt import ldlt_factor_blocked, ldlt_solve
 from uno_tpu.model.nlp import vector_norm
 from uno_tpu.options import Options
+from uno_tpu.parallel.schur import (make_sharded_schur_solver, schur_factor,
+                                    schur_solve)
 
 LARGE = 1e25
 
@@ -90,14 +92,25 @@ class StructuredResult(NamedTuple):
 
 
 def solve_structured_ipm(snlp: ScenarioNLP, opts: Optional[Options] = None,
-                         tol: float = 1e-8, max_iterations: int = 200):
-    """Jitted structured barrier solver; the Schur reduction runs as batched
-    (vmapped) block algebra — shard the scenario axis over a mesh via
-    jax.sharding on the inputs for multi-device execution."""
+                         tol: float = 1e-8, max_iterations: int = 200,
+                         mesh: Optional[Mesh] = None):
+    """Jitted structured barrier solver.  The Schur reduction runs as
+    batched (vmapped) block algebra on one device, or — given a 1-D `mesh`
+    whose axis is named "scenario" — as the shard_map'ed solver of
+    parallel/schur.py with the scenario blocks split over the devices
+    (S must be a multiple of the mesh size)."""
     opts = opts or Options()
     t_start = time.time()
     n0, ns, m, S = snlp.n0, snlp.ns, snlp.m, snlp.S
     nb = ns + m
+
+    if mesh is None:
+        def schur_factor_solve(Ks, Bs, K0, rhs_s, rhs0):
+            fac = schur_factor(Ks, Bs, K0)
+            xs, x0 = schur_solve(fac, Bs, rhs_s, rhs0)
+            return xs, x0, fac.num_pos, fac.num_neg, fac.num_zero
+    else:
+        schur_factor_solve = make_sharded_schur_solver(mesh, nb, n0)
 
     lb0 = jnp.asarray(np.where(np.isfinite(snlp.x0_lb), snlp.x0_lb, -LARGE))
     ub0 = jnp.asarray(np.where(np.isfinite(snlp.x0_ub), snlp.x0_ub, LARGE))
@@ -171,18 +184,10 @@ def solve_structured_ipm(snlp: ScenarioNLP, opts: Optional[Options] = None,
             rhs_s = jnp.concatenate([-(r_xs), -c], axis=1)     # (S, nb)
             r_x0 = rho * gf0 + jnp.sum(g_x0_rhs, axis=0) + gbar0
             rhs_0 = -r_x0
-            # Schur-complement factor+solve (vmapped block algebra)
-            facs = jax.vmap(lambda K: ldlt_factor_blocked(K, block=32))(Ks)
-            Yv = jax.vmap(ldlt_solve)(facs, Bs)
-            S0 = K0 - jnp.einsum("sij,sik->jk", Bs, Yv)
-            fac0 = ldlt_factor_blocked(S0, block=32)
-            r = jax.vmap(ldlt_solve)(facs, rhs_s)
-            x0_rhs = rhs_0 - jnp.einsum("sij,si->j", Bs, r)
-            dx0 = ldlt_solve(fac0, x0_rhs)
-            dblk = r - jnp.einsum("sij,j->si", Yv, dx0)
-            pos = jnp.sum(facs.num_pos) + fac0.num_pos
-            neg = jnp.sum(facs.num_neg) + fac0.num_neg
-            zero = jnp.sum(facs.num_zero) + fac0.num_zero
+            # Schur-complement factor+solve (parallel/schur.py): vmapped
+            # block algebra on one device, or one scenario slice per device
+            dblk, dx0, pos, neg, zero = schur_factor_solve(
+                Ks, Bs, K0, rhs_s, rhs_0)
             good = (pos == n0 + S * ns) & (neg == S * m) & (zero == 0)
             return dx0, dblk, good
 
